@@ -3,7 +3,7 @@
 Run with a virtual mesh:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   python examples/05_multichip_ber.py
-On a TPU pod the same code shards over real chips via ICI.
+On a multi-GPU host the same code shards over the real cards.
 """
 
 import time

@@ -1,6 +1,6 @@
-"""r4w_tpu — TPU-native, batch-first SDR/DSP waveform framework.
+"""r4w_tpu — batch-first SDR/DSP waveform framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the r4w
+A from-scratch JAX/XLA re-design of the capabilities of the r4w
 ("Rust for Waveforms") SDR platform: 46+ waveforms behind a common
 ``Waveform`` API, a GNU-Radio-style DSP op library, channel simulation,
 FEC codecs, and a GNSS acquisition/tracking/scenario stack — all expressed
@@ -13,7 +13,8 @@ Design stance (see SURVEY.md §7):
     Monte-Carlo lanes via ``vmap``/``shard_map``
   * waveforms are frozen-dataclass param structs + pure modulate/demodulate
   * hot kernels (dechirp-FFT-argmax, PCPS correlation, trellis ACS) are
-    batched onto the MXU/VPU via XLA, with Pallas where fusion matters.
+    batched through XLA, with a hand-written CUDA kernel only where a
+    card measurement shows XLA losing (kernels/).
 """
 
 __version__ = "0.1.0"

@@ -2,17 +2,17 @@
 r4w-fpga/src/error.rs, zynq/mod.rs + zynq/mmap.rs + zynq/uio.rs +
 zynq/dma.rs + zynq/registers.rs, lattice/mod.rs + lattice/spi.rs +
 lattice/ftdi.rs — the /dev/mem, UIO and FTDI/SPI host drivers whose
-offload role the TPU backend fills; register-map semantics are not
+offload role the JAX device fills; register-map semantics are not
 ported, per SURVEY §2.8).
 
 The reference exposes an `FpgaAccelerator` trait (r4w-fpga
 traits.rs:26) with fft/fir/chirp-correlate offload entry points and
-three backends (sim / zynq / lattice). On TPU the accelerator IS the
+three backends (sim / zynq / lattice). Here the accelerator IS JAX's
 default compute device, so the trait maps to a thin Backend protocol
 with two implementations:
 
 * ``JaxAccelerator`` — offload = jit-compiled jnp on whatever device
-  jax selected (the TPU in production, CPU in tests). This is the
+  jax selected (the GPU in production, CPU in tests). This is the
   analogue of the reference's real-hardware backends.
 * ``SimulatedAccelerator`` — pure numpy, mirroring r4w-fpga's
   `sim` backend (a software model used when no device exists), and
@@ -53,7 +53,7 @@ class Accelerator(Protocol):
 
 
 class JaxAccelerator:
-    """The TPU/XLA backend — jit-compiled offload paths."""
+    """The XLA backend — jit-compiled offload paths."""
 
     def __init__(self):
         import jax

@@ -4,7 +4,7 @@ Re-design of agent/ (agent/mod.rs; protocol.rs:11 AgentCommand,
 server.rs:57, client.rs:41): newline-delimited JSON commands on TCP :6000 —
 status/ping/start_tx/stop_tx/start_rx/stop_rx/metrics/list_waveforms/
 shutdown — driving UDP IQ streams (net.py). This is the host control
-plane (SURVEY.md §2.9); chip-to-chip transport stays on ICI collectives.
+plane (SURVEY.md §2.9); card-to-card transport stays on XLA collectives.
 """
 
 from __future__ import annotations
@@ -108,8 +108,7 @@ class AgentServer:
                              float(cmd.get("sample_rate", 125_000.0)))
         if wf is None:
             return {"response": "error", "message": "unknown waveform"}
-        # split-plane host pull (complex device->host transfers are
-        # unimplemented on some TPU runtimes)
+        # host pull through core.hostio (ARCHITECTURE.md §7)
         samples = to_host(wf.modulate(
             cmd.get("message", "agent tx").encode()))
         repeat = bool(cmd.get("repeat", False))

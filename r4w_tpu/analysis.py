@@ -135,8 +135,7 @@ class Waterfall:
 
         x = to_device(np.asarray(samples, np.complex64))
         frames = measure.stft(x, self.fft_size, self.hop)
-        # transfer |.|^2 (real) — complex device->host copies are
-        # unimplemented on some TPU runtimes (ARCHITECTURE §7)
+        # transfer |.|^2 (real): only the power leaves the device
         power = np.asarray(jnp.abs(frames) ** 2)
         power = np.fft.fftshift(power, axes=-1)
         return 10.0 * np.log10(np.maximum(power, 1e-30))

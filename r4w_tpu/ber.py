@@ -4,8 +4,8 @@ Re-design of the reference's `ber_tool.rs` (BerTester :44, confidence
 intervals :164, PerTester :220) and the MEASURABLE_OBJECTIVES "BER
 accuracy <10% deviation from theory" clause as one vectorised
 Monte-Carlo engine: every scheme runs millions of bits as a single
-(lanes × symbols × constellation) tensor program — on TPU the nearest-
-point search is an MXU matmul, and a full linear-fleet acceptance sweep
+(lanes × symbols × constellation) tensor program — on the device the nearest-
+point search is a matmul, and a full linear-fleet acceptance sweep
 is sub-second.
 
 Two measurement levels:

@@ -1,6 +1,6 @@
 """Batched FFT utilities.
 
-TPU-native equivalent of the reference FFT wrapper
+Batch-first equivalent of the reference FFT wrapper
 (crates/r4w-core/src/fft_utils.rs:44-300): instead of a cached-plan
 ``FftProcessor`` object, every helper here is a pure, jit/vmap-composable
 function operating on the *last* axis, so arbitrary leading batch axes

@@ -1,11 +1,11 @@
 """Host <-> device transfer helpers for complex IQ arrays.
 
-Some TPU transfer layers do not implement complex64 host<->device copies
-even though complex arithmetic *on* the device works fine (XLA lowers it
-to real pairs internally). These helpers move complex data across the
-boundary as split real/imag float32 planes and (re)combine on the other
-side, so every framework edge (file IO, CLI, plotting, sockets) works on
-every backend. On CPU the split costs one trivially-fused kernel.
+These helpers move complex data across the host boundary as split
+real/imag float32 planes and (re)combine on the other side; every
+framework edge (file IO, CLI, plotting, sockets) routes through them.
+They date from a transfer layer without complex64 copies. On an H100 a
+plain complex64 round trip is bit-exact (PERF.md), so they can collapse
+to plain transfers (ROADMAP.md §3). The split costs one fused kernel.
 
 Mirrors the role of the reference's IQ boundary conversions
 (crates/r4w-core/src/io/format.rs) for device arrays.
@@ -55,9 +55,8 @@ def cis(phase) -> jax.Array:
     """exp(j*phase) via lax.complex(cos, sin).
 
     Equivalent to jnp.exp(1j*phase) but avoids the f32->c64
-    convert_element_type that eager complex promotion emits — that
-    conversion is unimplemented on some TPU runtimes (the same gap as
-    the host-copy one above). Compiles to the same HLO under jit.
+    convert_element_type that eager complex promotion emits. Compiles
+    to the same HLO under jit.
     """
     p = jnp.asarray(phase, jnp.float32)
     return jax.lax.complex(jnp.cos(p), jnp.sin(p))
@@ -67,8 +66,8 @@ def zeros_iq(shape) -> jax.Array:
     """complex64 zeros without a complex fill-value upload.
 
     jnp.zeros(shape, complex64) broadcasts a host complex scalar to the
-    device, which is unimplemented on some TPU runtimes; building the
-    planes as f32 and combining with lax.complex is eager-safe.
+    device; this builds the planes as f32 and combines them with
+    lax.complex instead.
     """
     if isinstance(shape, int):
         shape = (shape,)

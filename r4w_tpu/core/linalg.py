@@ -1,7 +1,6 @@
-"""TPU-safe small linear-algebra helpers.
+"""Small linear-algebra helpers that lower on every backend.
 
-Complex least squares on TPU: complex QR/SVD lowering is not reliably
-available, so `complex_lstsq` solves the ridge-regularized normal
+Complex least squares without complex QR/SVD lowering: `complex_lstsq` solves the ridge-regularized normal
 equations through the standard real 2x2 block embedding
 [[Re M, -Im M], [Im M, Re M]] — real `jnp.linalg.solve` lowers
 everywhere. Intended for the small design/estimation systems in the
@@ -19,7 +18,7 @@ def complex_lstsq(a: jax.Array, b: jax.Array,
                   ridge: float = 1e-9) -> jax.Array:
     """argmin_h ||a @ h - b||² for complex a (m, n), b (m,).
 
-    Pure jnp — jit/vmap-safe on TPU. `ridge` scales with trace(aᴴa)/n
+    Pure jnp — jit/vmap-safe. `ridge` scales with trace(aᴴa)/n
     so regularization is relative to the problem's energy.
     """
     a = jnp.asarray(a)

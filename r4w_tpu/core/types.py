@@ -1,6 +1,6 @@
 """Core types and dtype policy.
 
-TPU-first equivalents of the reference's core types
+Batch-first equivalents of the reference's core types
 (crates/r4w-core/src/types.rs:34-90): IQ samples are ``complex64`` JAX
 arrays (batch-first blocks), symbols are ``int32`` arrays (u16 range),
 and errors are Python exceptions raised at trace/host time — shape and
@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 
 # Dtype policy ---------------------------------------------------------------
-# IQ blocks: complex64 (f32 pairs) — TPU-native; f64 reference checks run on
+# IQ blocks: complex64 (f32 pairs) on the device; f64 reference checks run on
 # CPU-jax in tests. Symbols: int32 (XLA prefers 32-bit lanes over u16).
 IQ_DTYPE = jnp.complex64
 REAL_DTYPE = jnp.float32

@@ -2,7 +2,7 @@
 matrix codes.
 
 Re-designs of repetition_code.rs and golay_code.rs (599 LoC): encoding
-is a GF(2) matrix product (one int matmul % 2 — MXU-shaped); Golay
+is a GF(2) matrix product (one int matmul % 2); Golay
 decoding uses the classic syndrome table for guaranteed 3-error
 correction.
 """
@@ -114,7 +114,7 @@ def golay_decode(codeword24):
 
 
 def matrix_encode(data, generator: np.ndarray) -> jax.Array:
-    """c = d·G (mod 2) — one int matmul, MXU-shaped for big batches."""
+    """c = d·G (mod 2) — one int matmul for big batches."""
     return jnp.einsum(
         "...k,kn->...n", jnp.asarray(data, jnp.int32),
         jnp.asarray(generator, jnp.int32)

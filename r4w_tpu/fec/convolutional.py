@@ -76,58 +76,67 @@ def conv_encode(bits, constraint: int = 7,
     return par.reshape(*par.shape[:-2], -1)
 
 
-def viterbi_decode(received, constraint: int = 7,
-                   polys: tuple[int, ...] = (0o171, 0o133),
-                   terminated: bool = True,
-                   soft: bool = False,
-                   unroll: int = 4) -> jax.Array:
-    """Viterbi decode (viterbi_decoder.rs re-design, TPU-tuned).
+def _code_table(constraint: int, polys: tuple[int, ...]) -> np.ndarray:
+    """(S, 2) int32 codeword index per (state, input bit); generator i
+    sits at bit i of the index."""
+    outputs_np, _ = _trellis(constraint, tuple(polys))
+    weights = 1 << np.arange(outputs_np.shape[-1])
+    return (outputs_np.astype(np.int32) * weights[None, None, :]).sum(-1)
 
-    received: hard bits (..., N*R) int, or soft LLR-ish values in [-1,1]
-    per coded bit with soft=True (positive ~ bit 0... we use the
-    convention value = 1-2·bit so +1 means bit 0).
-    Returns decoded bits (..., N_info) (flush bits removed when
-    terminated=True).
 
-    TPU design (vs the r2 float gather/argmin scan, measured ~10 Mbps):
-    - branch metrics are computed per distinct CODEWORD (2^R values per
-      step, e.g. 4 for rate 1/2) instead of per (state, bit) (2·S=128),
-      then broadcast onto the trellis with one tiny (.., 2^R)x(2^R, 2S)
-      matmul — MXU work, zero gathers;
-    - the add-compare-select exploits the shift-register butterfly: with
-      state = previous K-1 bits (newest at MSB), target s' = b·S/2 + m
-      has exactly predecessors {2m, 2m+1}, so ACS is a reshape + max —
-      no gather/scatter at all;
-    - traceback decisions are BIT-PACKED 8-per-byte before leaving the
-      scan (HBM traffic is the throughput ceiling on v5e: unpacked int8
-      decisions cost 64 B per decoded bit, packed 8 B).
+def _expected_codes(r: int) -> jax.Array:
+    """(C, R) ±1 sequence of every codeword (+1 ~ bit 0)."""
+    code_bits = (np.arange(1 << r)[:, None] >> np.arange(r)[None, :]) & 1
+    return jnp.asarray((1.0 - 2.0 * code_bits).astype(np.float32))
+
+
+def _branch_metrics(rx: jax.Array) -> jax.Array:
+    """Per-codeword correlation metrics (..., T, R) -> (..., T, C).
+
+    The products are by ±1 and so exact; HIGHEST keeps the sum in
+    float32 where the GPU would otherwise run this contraction in TF32.
     """
-    outputs_np, next_np = _trellis(constraint, tuple(polys))
-    s, _, r = outputs_np.shape
-    half = s // 2
-    k = constraint
-    n_codes = 1 << r
+    return jnp.einsum("...tr,cr->...tc", rx, _expected_codes(rx.shape[-1]),
+                      precision=lax.Precision.HIGHEST)
 
-    # code index per (state, input bit); generator 0 at LSB
-    weights = 1 << np.arange(r)
-    oidx = (outputs_np.astype(np.int32) * weights[None, None, :]).sum(-1)
-    # expected ±1 sequence per distinct codeword: (C, R)
-    code_bits = (np.arange(n_codes)[:, None] >> np.arange(r)[None, :]) & 1
-    expected_codes = jnp.asarray((1.0 - 2.0 * code_bits).astype(np.float32))
-    # branch-metric selection: onehot[b, st, c] = 1 iff code(st, b) == c
-    onehot = np.zeros((2, s, n_codes), np.float32)
-    for st in range(s):
-        for b in (0, 1):
-            onehot[b, st, oidx[st, b]] = 1.0
-    onehot_j = jnp.asarray(onehot)  # (2, S, C)
 
+def _soft_steps(received, r: int, soft: bool) -> jax.Array:
+    """Received coded bits -> (..., T, R) float32 with +1 ~ bit 0."""
     rx = jnp.asarray(received, REAL_DTYPE)
     n_steps = rx.shape[-1] // r
     rx = rx[..., : n_steps * r].reshape(*rx.shape[:-1], n_steps, r)
-    if not soft:
-        rx = 1.0 - 2.0 * rx  # bits -> ±1
-    # per-codeword correlation metrics (higher better): (..., T, C)
-    bm = jnp.einsum("...tr,cr->...tc", rx, expected_codes)
+    return rx if soft else 1.0 - 2.0 * rx
+
+
+def viterbi_decode_scan(received, constraint: int = 7,
+                        polys: tuple[int, ...] = (0o171, 0o133),
+                        terminated: bool = True,
+                        soft: bool = False,
+                        unroll: int = 4) -> jax.Array:
+    """Viterbi decode as a plain `lax.scan` (viterbi_decoder.rs
+    re-design); the reference for the CUDA decoder.
+
+    received: hard bits (..., N*R) int, or soft values in [-1,1] per
+    coded bit with soft=True (value = 1-2·bit, so +1 means bit 0).
+    Returns decoded bits (..., N_info) (flush bits removed when
+    terminated=True).
+
+    - branch metrics are computed per distinct CODEWORD (2^R values per
+      step, e.g. 4 for rate 1/2) and gathered onto the trellis;
+    - the add-compare-select exploits the shift-register butterfly: with
+      state = previous K-1 bits (newest at MSB), target s' = b·S/2 + m
+      has exactly predecessors {2m, 2m+1}, so ACS is a reshape + max;
+    - traceback decisions are bit-packed 8 per int32 word inside the
+      scan.
+    """
+    s = 1 << (constraint - 1)
+    half = s // 2
+    k = constraint
+    code_of = jnp.asarray(_code_table(constraint, polys).T)  # (2, S)
+
+    rx = _soft_steps(received, len(polys), soft)
+    n_steps = rx.shape[-2]
+    bm = _branch_metrics(rx)                         # (..., T, C)
 
     init = jnp.full(rx.shape[:-2] + (s,), -1e9, REAL_DTYPE)
     init = init.at[..., 0].set(0.0)
@@ -140,7 +149,7 @@ def viterbi_decode(received, constraint: int = 7,
 
     def step(metrics, bm_t):
         # (..., C) -> (..., 2, S): branch metric for (input bit, prev st)
-        bm_sb = jnp.einsum("...c,bsc->...bs", bm_t, onehot_j)
+        bm_sb = bm_t[..., code_of]
         cand = metrics[..., None, :] + bm_sb          # (..., 2, S)
         c = cand.reshape(*cand.shape[:-1], half, 2)   # split st -> (m, j)
         new_metrics = jnp.max(c, axis=-1)             # (..., 2, half)
@@ -176,73 +185,100 @@ def viterbi_decode(received, constraint: int = 7,
     return bits.astype(jnp.int32)
 
 
-def viterbi_decode_mxu(received, constraint: int = 7,
-                       polys: tuple[int, ...] = (0o171, 0o133),
-                       soft: bool = False,
-                       chunk: int = 64,
-                       interpret: bool | None = None) -> jax.Array:
-    """Terminated Viterbi decode on the Pallas VMEM-resident ACS kernel
-    (viterbi_decoder.rs hot loop; SURVEY §2.8 "min-plus trellis on the
-    MXU").
+def viterbi_forward_ref(rx: jax.Array, code_of: np.ndarray):
+    """Plain-JAX forward pass with the CUDA kernel's contract
+    (kernels.cuda.viterbi_forward): rx (L, T, R) -> decisions (L, T, 2)
+    uint32, bit s' of the 64-bit word set iff target s' took
+    predecessor 2m+1, and final metrics (L, S)."""
+    code_of = np.asarray(code_of)
+    s = code_of.shape[0]
+    half = s // 2
+    code_t = jnp.asarray(code_of.T)                   # (2, S)
+    bm = jnp.moveaxis(_branch_metrics(rx), -2, 0)     # (T, L, C)
+    init = jnp.full(rx.shape[:-2] + (s,), -1e9, REAL_DTYPE)
+    init = init.at[..., 0].set(0.0)
+    bit = np.arange(s)
+    weights = [jnp.asarray(np.where(bit // 32 == w, 1 << (bit % 32), 0)
+                           .astype(np.uint32)) for w in (0, 1)]
 
-    Same contract as viterbi_decode(terminated=True) for batched input
-    (..., N*R) — bit-exact against it (tested) — but the forward pass
-    keeps the (S, 128) path metrics resident in VMEM for the whole
-    frame (kernels.pallas_kernels.viterbi_forward), so HBM traffic per
-    decoded bit drops from ~800 B (XLA scan intermediates) to ~32 B:
-    branch metrics in, 16-bit-packed decisions out. Traceback is a
-    cheap reverse lax.scan over the packed decisions on device.
+    def step(metrics, bm_t):
+        cand = metrics[..., None, :] + bm_t[..., code_t]  # (L, 2, S)
+        c = cand.reshape(*cand.shape[:-1], half, 2)
+        new = jnp.max(c, axis=-1).reshape(*metrics.shape)
+        dec = (c[..., 1] > c[..., 0]).reshape(*metrics.shape)
+        dec = dec.astype(jnp.uint32)
+        words = jnp.stack([jnp.sum(dec * wt, axis=-1, dtype=jnp.uint32)
+                           for wt in weights], axis=-1)
+        return new, words
 
-    Frames are decoded across MXU lanes: leading batch axes flatten to
-    lanes (padded to 128), time pads to a `chunk` multiple (padded
-    steps' decisions are sliced off before traceback, so padding cannot
-    perturb the survivor path).
+    final, dec = lax.scan(step, init, bm)
+    return jnp.moveaxis(dec, 0, -2), final
+
+
+def viterbi_traceback_ref(dec: jax.Array, start: jax.Array, half: int):
+    """Plain-JAX traceback with the CUDA kernel's contract: dec
+    (L, T, 2) uint32, start (L,) int32 -> input bits (L, T) int32."""
+    shift = int(half).bit_length() - 1
+
+    def back(state, words):
+        word = jnp.take_along_axis(words, (state >> 5)[..., None],
+                                   axis=-1)[..., 0]
+        j = ((word >> (state & 31).astype(jnp.uint32)) & 1).astype(
+            jnp.int32)
+        return 2 * (state & (half - 1)) + j, state >> shift
+
+    _, bits = lax.scan(back, start, jnp.moveaxis(dec, -2, 0), reverse=True)
+    return jnp.moveaxis(bits, 0, -1)
+
+
+def viterbi_decode_packed(received, constraint: int = 7,
+                          polys: tuple[int, ...] = (0o171, 0o133),
+                          terminated: bool = True, soft: bool = False,
+                          forward=viterbi_forward_ref,
+                          traceback=viterbi_traceback_ref) -> jax.Array:
+    """Viterbi decode through a packed-decision forward pass and a
+    per-frame traceback (the CUDA kernels' contract; the defaults are
+    their plain-JAX versions). Same contract as viterbi_decode_scan."""
+    if not 3 <= constraint <= 7:
+        raise ValueError("packed-decision Viterbi needs 3 <= K <= 7")
+    code_of = _code_table(constraint, polys)
+    half = code_of.shape[0] // 2
+    rx = _soft_steps(received, len(polys), soft)
+    lead, n_steps = rx.shape[:-2], rx.shape[-2]
+    rx = rx.reshape((-1,) + rx.shape[-2:])            # (L, T, R)
+    dec, final = forward(rx, code_of)
+    start = (jnp.zeros(rx.shape[:1], jnp.int32) if terminated
+             else jnp.argmax(final, axis=-1).astype(jnp.int32))
+    bits = traceback(dec, start, half).reshape(lead + (n_steps,))
+    if terminated:
+        bits = bits[..., : n_steps - (constraint - 1)]
+    return bits.astype(jnp.int32)
+
+
+def viterbi_decode(received, constraint: int = 7,
+                   polys: tuple[int, ...] = (0o171, 0o133),
+                   terminated: bool = True,
+                   soft: bool = False,
+                   unroll: int = 4) -> jax.Array:
+    """Viterbi decode (viterbi_decoder.rs).
+
+    received: hard bits (..., N*R) int, or soft values in [-1,1] per
+    coded bit with soft=True (+1 means bit 0). Returns decoded bits
+    (..., N_info), flush bits removed when terminated=True.
+
+    On a CUDA device, codes with 3 <= K <= 7 run the warp-per-frame
+    CUDA kernels (kernels/viterbi.cu), bit-identical to the scan;
+    everything else runs viterbi_decode_scan (`unroll` applies there).
     """
-    from r4w_tpu.kernels.pallas_kernels import viterbi_forward, \
-        viterbi_traceback
+    if jax.default_backend() == "gpu" and 3 <= constraint <= 7:
+        from r4w_tpu.kernels import cuda
 
-    k = constraint
-    r = len(polys)
-    n_codes = 1 << r
-
-    rx = jnp.asarray(received, REAL_DTYPE)
-    if rx.ndim == 1:
-        rx = rx[None]
-        squeeze = True
-    else:
-        squeeze = False
-    lead = rx.shape[:-1]
-    rx = rx.reshape(-1, rx.shape[-1])
-    l0 = rx.shape[0]
-    t_real = rx.shape[-1] // r
-    rx = rx[:, : t_real * r].reshape(l0, t_real, r)
-    if not soft:
-        rx = 1.0 - 2.0 * rx
-
-    code_bits = (np.arange(n_codes)[:, None] >> np.arange(r)[None, :]) & 1
-    expected = jnp.asarray((1.0 - 2.0 * code_bits).astype(np.float32))
-    bm = jnp.einsum("ltr,cr->tcl", rx, expected)      # (T, C, L)
-
-    t_pad = -t_real % chunk
-    # Lanes must pad to a multiple of the kernel's lane-block width lb
-    # = min(2048, lanes), not just 128: e.g. 2100 lanes padded to 2176
-    # would fail viterbi_forward's lanes % lb == 0 with lb = 2048 (and
-    # viterbi_traceback would silently drop the remainder). ≤2048
-    # lanes round up to one exact block; beyond that, to a 2048
-    # multiple (bounded ≤2047 wasted lanes).
-    l128 = l0 + (-l0 % 128)
-    lb = min(2048, l128)
-    l_pad = (l128 + (-l128 % lb)) - l0
-    if t_pad or l_pad:
-        bm = jnp.pad(bm, ((0, t_pad), (0, 0), (0, l_pad)))
-    dec, _ = viterbi_forward(bm, constraint, tuple(polys),
-                             chunk=chunk, interpret=interpret)
-    dec = dec[:t_real]                                 # padded steps out
-    bits_tl = viterbi_traceback(dec, constraint, tuple(polys),
-                                chunk=chunk, interpret=interpret)
-    bits = bits_tl.T[:l0, : t_real - (k - 1)].astype(jnp.int32)
-    bits = bits.reshape(*lead, bits.shape[-1])
-    return bits[0] if squeeze else bits
+        return viterbi_decode_packed(received, constraint, polys,
+                                     terminated, soft,
+                                     forward=cuda.viterbi_forward,
+                                     traceback=cuda.viterbi_traceback)
+    return viterbi_decode_scan(received, constraint, polys, terminated,
+                               soft, unroll)
 
 
 def puncture(coded, pattern) -> jax.Array:
@@ -282,7 +318,8 @@ def map_decode(received, constraint: int = 7,
     rx = jnp.asarray(received, REAL_DTYPE)
     n_steps = rx.shape[-1] // r
     rx = rx[..., : n_steps * r].reshape(*rx.shape[:-1], n_steps, r)
-    bm = jnp.einsum("...tr,sbr->...tsb", rx, expected)  # (..., T, S, 2)
+    bm = jnp.einsum("...tr,sbr->...tsb", rx, expected,
+                    precision=lax.Precision.HIGHEST)  # (..., T, S, 2)
 
     init_a = jnp.full(rx.shape[:-2] + (s,), -1e9, REAL_DTYPE)
     init_a = init_a.at[..., 0].set(0.0)

@@ -7,7 +7,7 @@ PEG-like pseudo-random information-column placement, NOT the literal
 ETSI EN 302 307-2 address tables (the reference generates its H the
 same way, dvb_s2x_ldpc_codec.rs:174 generate_parity_check).
 
-TPU design: encoding is a scatter-add of info bits onto check rows
+Batched design: encoding is a scatter-add of info bits onto check rows
 followed by a prefix-XOR (cumsum mod 2) for the staircase — one fused
 pass, batchable over frames. Decoding is normalized min-sum on a dense
 (checks × max-row-degree) masked edge layout, fori_loop iterations,

@@ -1,13 +1,7 @@
-from r4w_tpu.kernels.pallas_kernels import (
-    dechirp_power_mxu,
-    fir_decimate,
-    nco_mix,
-    pallas_available,
-)
+"""Hand-written GPU kernels.
 
-__all__ = [
-    "dechirp_power_mxu",
-    "fir_decimate",
-    "nco_mix",
-    "pallas_available",
-]
+`kernels.cuda` builds the CUDA sources beside it with nvcc on first
+use and registers them with XLA; the only kernel is the Viterbi decoder
+behind `fec.convolutional.viterbi_decode`. Everything else in the
+library is plain JAX that XLA compiles.
+"""

@@ -4,7 +4,7 @@
 // pieces (SURVEY.md §2.8): interleaved IQ format conversion
 // (io/format.rs hot loops), a lock-free SPSC ring buffer
 // (rt/ringbuffer.rs), and UDP IQ packet framing (udp_source_sink.rs).
-// The TPU compute path stays in XLA/Pallas; this library keeps the
+// The device compute path stays in XLA; this library keeps the
 // host I/O path off the Python interpreter.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libiqcore.so iqcore.cpp

@@ -1,19 +1,19 @@
 /* r4w_capi.h — C API for the r4w_tpu framework's host-side DSP core.
  *
- * TPU-native counterpart of the reference's C FFI surface
+ * Batch-first counterpart of the reference's C FFI surface
  * (crates/r4w-ffi/src/lib.rs:1-1374, cbindgen header r4w.h): complex
  * I/Q helpers, FFT with peak search, LoRa chirp generation, a lock-free
  * SPSC ring buffer, signal utilities, and waveform handles
  * (BPSK/QPSK/LoRa) with modulate/demodulate.
  *
  * Design note: in this framework the accelerated compute path is
- * JAX/XLA on TPU; this library is the *embedded/host* seam — the same
+ * JAX/XLA on the accelerator; this library is the *embedded/host* seam — the same
  * algorithms in portable C++ so C callers (drivers, DAQ firmware,
  * test rigs) can frame and parse waveforms without a Python runtime.
  * Bit-exact conventions match the Python package (same Gray maps,
  * whitening LFSR, Hamming parities, chirp phase law), which
  * tests/test_capi.py cross-validates against the JAX implementations.
- * For TPU-rate processing from C, stream IQ to a running
+ * For accelerator-rate processing from C, stream IQ to a running
  * `r4w-tpu agent` over UDP/TCP instead (net.py wire format).
  *
  * Build:  g++ -O2 -shared -fPIC -o libr4w.so r4w_capi.cpp

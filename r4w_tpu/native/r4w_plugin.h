@@ -1,7 +1,7 @@
 /* r4w_tpu C-ABI waveform plugin interface.
  *
  * Re-design of crates/r4w-core/src/plugin/abi.rs (PluginInfo :45,
- * WaveformDescriptor :67, caps :88) for the TPU build: plugins are
+ * WaveformDescriptor :67, caps :88) for the JAX build: plugins are
  * shared libraries exporting the functions below; the Python
  * PluginManager loads them via ctypes and registers each waveform in
  * the factory. IQ crosses the boundary as interleaved f32 (re, im).

@@ -41,7 +41,7 @@ def agc(x, target_level: float = 1.0, attack: float = 0.01,
 
 
 def agc_block(x, target_level: float = 1.0, block: int = 256):
-    """Feed-forward block AGC (TPU-friendly): one gain per block from the
+    """Feed-forward block AGC (batch-friendly): one gain per block from the
     block RMS — the batch-first alternative to the per-sample loop."""
     x = jnp.asarray(x, IQ_DTYPE)
     n = x.shape[-1]

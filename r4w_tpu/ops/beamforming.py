@@ -13,7 +13,7 @@ ultrasound_beam_synthesizer.rs, successive_interference_canceller.rs
 (power-domain form; the spatial SIC lives in ops/mimo.sic_decode).
 
 Matrix work (ZF/MMSE/SVD/LCMV) is dense linear algebra — exactly what
-the MXU runs natively; per-symbol detection is one batched solve.
+a batched matmul; per-symbol detection is one batched solve.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def mimo_detect_mmse(y, h, noise_var: float):
 def mimo_detect_ml(y, h, constellation):
     """Exact ML detection by enumerating the Nt-fold constellation
     product as ONE (batch, |C|^Nt) distance matmul (mimo_detector.rs
-    sphere-decoder role, brute-force-batched the TPU way).
+    sphere-decoder role, brute-force-batched).
     Practical for |C|^Nt up to a few thousand."""
     h = jnp.asarray(h, IQ_DTYPE)
     c = jnp.asarray(constellation, IQ_DTYPE)

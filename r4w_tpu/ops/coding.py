@@ -4,7 +4,7 @@ Vectorized re-designs of the reference LoRa coding chain
 (crates/r4w-core/src/coding.rs, whitening.rs): all codecs are pure
 array→array functions. Small codes are expressed as lookup tables
 (numpy-precomputed, constant-folded under jit) and gathers — the natural
-TPU formulation — rather than per-symbol bit loops.
+batched formulation — rather than per-symbol bit loops.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ elint_pulse_characterizer.rs, esm_receiver.rs re-designs).
 Batch-first: the cross-ambiguity surface is one gather + batched FFT,
 SAR range/azimuth compression are batched frequency-domain matched
 filters, ESPRIT reduces to one eigh on the array covariance plus a tiny
-host-side eigensolve (n_sources x n_sources, non-Hermitian — not a TPU
+host-side eigensolve (n_sources x n_sources, non-Hermitian — not a device
 op). Detection lists with data-dependent length (pulses, emitters) are
 returned as fixed-size arrays with a validity count, XLA-style.
 """

@@ -15,7 +15,7 @@ multiband_compressor.rs, pre_emphasis.rs, fm_emphasis.rs,
 filter_synthesis_engine.rs.
 
 Batch-first: block convolutions use one batched FFT over all blocks at
-once (the MXU/HBM-friendly form of the reference's per-block loops);
+once (the batch-friendly form of the reference's per-block loops);
 the few truly recursive pieces (noise shaping, compressor envelopes)
 run in ``lax.scan``.
 """

@@ -11,7 +11,7 @@ Covers the last reference modules without a named counterpart here:
   GNU-Radio-style hop-control blocks).
 * speech_enhancement_beamforming.rs — delay-and-sum + spectral
   postfilter composition.
-* simd_utils.rs — explicit batched complex kernels; on TPU the VPU
+* simd_utils.rs — explicit batched complex kernels; on the device XLA
   vectorization is XLA's job, these exist so pipelines can name them.
 * Named aliases (same math already shipped elsewhere):
   cross_ambiguity_function.rs → ops/ew.cross_ambiguity,
@@ -236,7 +236,7 @@ def hop_frequencies(pattern, base_hz: float, spacing_hz: float):
 class FrequencyHoppingController:
     """Sample-indexed hop scheduling (frequency_hopping_controller.rs):
     dwell/guard timing and the channel active at any sample index —
-    the deterministic (not wall-clock) form the TPU design uses."""
+    the deterministic (not wall-clock) form the batch design uses."""
 
     def __init__(self, pattern, dwell_samples: int,
                  guard_samples: int = 0):
@@ -281,7 +281,7 @@ def dpd_learn_polynomial(pa_in, pa_out, order: int = 5):
     post-inverse y→x with an odd-order memoryless polynomial
     Σ c_k y|y|^{2k}; the same coefficients applied PRE-PA linearize
     the chain. Pure jnp (jit-safe); returns (coef, gain) as device
-    scalars — the TPU-safe real-block LS is core.linalg.complex_lstsq."""
+    scalars — the real-block LS is core.linalg.complex_lstsq."""
     from r4w_tpu.core.linalg import complex_lstsq
 
     x = jnp.asarray(pa_in, IQ_DTYPE)
@@ -309,7 +309,7 @@ def dpd_apply(x, coef):
 
 
 def cmul(a, b):
-    """Batched complex multiply (simd_utils.rs — on TPU the VPU
+    """Batched complex multiply (simd_utils.rs — on the device XLA
     vectorization is XLA's job; this exists so pipelines can name it)."""
     return jnp.asarray(a, IQ_DTYPE) * jnp.asarray(b, IQ_DTYPE)
 

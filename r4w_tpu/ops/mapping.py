@@ -13,7 +13,7 @@ vector_quantizer.rs.
 
 Constellation tables come from waveforms.linear_mod (the single source
 of truth also used by the PSK/QAM waveforms); mapping/demapping is one
-gather / one argmin over the table — MXU-trivial and vmap-batchable.
+gather / one argmin over the table — vmap-batchable.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def symbol_map(indices, constellation):
 
 def symbol_demap(x, constellation):
     """Nearest-point hard demapping (symbol_demapper.rs): one argmin
-    over the squared distance matrix — a batched MXU-style reduction."""
+    over the squared distance matrix — a batched reduction."""
     x = jnp.asarray(x, IQ_DTYPE)
     table = jnp.asarray(constellation, IQ_DTYPE)
     d = jnp.abs(x[..., None] - table[None, :]) ** 2
@@ -376,7 +376,7 @@ def crest_factor_reduce(x, clip_ratio_db: float = 3.0,
 def incoherent_detect(x, freqs_hz, sample_rate: float, sym_len: int):
     """Noncoherent M-FSK detection (incoherent_detector.rs): per-symbol
     energy at each candidate tone via one (sym, tone) matmul —
-    the Goertzel bank as an MXU product."""
+    the Goertzel bank as a matrix product."""
     x = jnp.asarray(x, IQ_DTYPE)
     n_sym = x.shape[0] // sym_len
     frames = x[:n_sym * sym_len].reshape(n_sym, sym_len)

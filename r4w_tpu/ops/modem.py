@@ -5,7 +5,7 @@ gmsk_modulator.rs, msk_modulator.rs, sc_fdma.rs, papr_reduction.rs,
 cyclic_prefix.rs, index_modulation_mapper.rs re-designs).
 
 Everything is a pure batched function: soft demapping is one distance
-matrix + per-bit masked min (max-log-MAP) that XLA maps onto the MXU;
+matrix + per-bit masked min (max-log-MAP) that XLA runs as batched matmuls;
 CPM is a cumulative phase integral; SC-FDMA is two FFTs and a mask.
 """
 

@@ -10,7 +10,7 @@ one (..., n_sym, n_bins) array: LS estimates at every pilot of every
 symbol in one gather, common-phase-error per symbol via a reduction,
 packet channel estimate via a masked mean, interpolation via one
 matmul with a precomputed (n_bins, n_pilots) interpolation operator
-(MXU-friendly, no per-bin control flow).
+(matmul-shaped, no per-bin control flow).
 """
 
 from __future__ import annotations
@@ -29,10 +29,9 @@ from r4w_tpu.core.types import IQ_DTYPE, REAL_DTYPE
 def _iq(x):
     """Coerce to a device complex64 array.
 
-    Host numpy complex arrays cross the boundary as split real/imag
-    planes (hostio.to_device) because complex64 host->device copies are
-    unimplemented on some TPU transfer layers (ARCHITECTURE.md §7);
-    device arrays just get a dtype cast.
+    Host numpy complex arrays cross the boundary through
+    hostio.to_device (ARCHITECTURE.md §7); device arrays just get a
+    dtype cast.
     """
     if isinstance(x, np.ndarray) and np.iscomplexobj(x):
         return hostio.to_device(np.asarray(x, np.complex64))
@@ -98,7 +97,7 @@ def _interp_operator(positions: tuple[int, ...], n_bins: int) -> np.ndarray:
     Linear between adjacent pilots, constant (nearest) extrapolation
     outside — matches ofdm_channel_est.rs:238 interpolate_pilots. Built
     host-side once per pattern; applying it is one complex matmul, so the
-    whole packet's interpolation rides the MXU instead of a per-bin scan.
+    whole packet's interpolation is a matmul instead of a per-bin scan.
     """
     pos = np.asarray(positions, np.float64)
     w = np.zeros((n_bins, len(positions)), np.float32)
@@ -133,9 +132,7 @@ def common_phase_error(h_ls, h_ref):
     corr = jnp.sum(h_ls * jnp.conj(h_ref), axis=-1)
     mag = jnp.abs(corr)
     # Degenerate (zero-correlation) symbols fall back to a unit phasor.
-    # Built from real planes: jnp.ones_like on a complex array would
-    # materialize a complex constant host-side, and complex host->device
-    # transfers are unimplemented on some TPU runtimes (ARCHITECTURE §7).
+    # Built from real planes (core.hostio style, ARCHITECTURE.md §7).
     degen = (mag <= 1e-12).astype(REAL_DTYPE)
     scale = (1.0 - degen) / jnp.maximum(mag, 1e-12)
     return jax.lax.complex(jnp.real(corr) * scale + degen,

@@ -291,7 +291,7 @@ def ls_channel_estimate(tx_pilots, rx_pilots, n_taps: int = 8):
     (channel_estimator.rs): solve the Toeplitz LS for the FIR channel.
 
     Pure jnp (jit/vmap-safe): the Toeplitz data matrix is one gather
-    and the complex LS solves through the TPU-safe real-block normal
+    and the complex LS solves through the real-block normal
     equations (core.linalg.complex_lstsq)."""
     from r4w_tpu.core.linalg import complex_lstsq
 

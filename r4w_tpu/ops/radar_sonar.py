@@ -16,7 +16,7 @@ radar_cross_section_estimator.rs, weather_radar_clutter_suppressor.rs,
 wind_profiler_radar.rs.
 
 The common shape is a (pulse, range) data cube: everything reduces to
-batched matched filtering + 2-D FFTs + peak logic — pure MXU/FFT work.
+batched matched filtering + 2-D FFTs + peak logic — pure matmul/FFT work.
 """
 
 from __future__ import annotations

@@ -160,7 +160,7 @@ def farrow_resample(x, ratio: float, order: int = 3):
     Cubic-Lagrange interpolation at output positions k/ratio; unlike the
     reference's per-sample state machine, every output sample's base
     index and fractional offset mu are computed up-front, so the whole
-    resample is one gather + polynomial evaluation (TPU-friendly).
+    resample is one gather + polynomial evaluation.
     """
     if order not in (1, 2, 3):
         raise ValueError("farrow order must be 1, 2 or 3")

@@ -149,7 +149,7 @@ def crc16_parallel(frames):
     """CRC-16/X.25 over a BATCH of equal-length byte frames in one
     vectorized table walk (cyclic_redundancy_check_parallel.rs):
     the byte loop is over frame LENGTH, every frame advances in
-    lockstep — the TPU-native form of per-frame CRC loops."""
+    lockstep — the batch-first form of per-frame CRC loops."""
     f = jnp.asarray(frames, jnp.int32)          # (B, L)
     # build the X.25 (reflected 0x1021) table host-side
     table = np.zeros(256, np.int64)

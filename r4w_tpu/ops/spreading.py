@@ -95,7 +95,7 @@ def gold_code(degree: int, index: int) -> np.ndarray:
 
 def gold_family(degree: int, count: int | None = None) -> np.ndarray:
     """(count, 2^degree - 1) bank of Gold codes — one constant array for
-    batched correlation on the MXU."""
+    batched correlation as a matmul."""
     n = (1 << degree) - 1
     count = count if count is not None else n + 2
     return np.stack([gold_code(degree, i) for i in range(count)])

@@ -17,7 +17,7 @@ matrix_eigenvalue.rs, check_lfsr.rs, stream_switch.rs,
 stream_to_streams.rs, stream_byte_converter.rs, sample_ops.rs).
 
 Each block is a small pure batched function over whole sample blocks —
-the TPU-native equivalent of the reference's per-sample `process()`
+the batch-first equivalent of the reference's per-sample `process()`
 loops. Stateful recursions (peak hold, envelope, squelch gating) use
 ``lax.scan`` with explicit carried state so long captures can be chained
 block-to-block.

@@ -144,7 +144,7 @@ def symbol_sync_mm(x, sps: int, bw: float = 0.01, mu0: float = 0.0):
     output per symbol (clock_recovery_mm.rs / symbol_sync.rs).
 
     Sequential by nature → lax.scan over symbols; the fractional
-    interpolator is a linear gather (TPU-friendly: one dynamic_slice
+    interpolator is a linear gather (one dynamic_slice
     per symbol, no data-dependent shapes)."""
     x = jnp.asarray(x, IQ_DTYPE)
     n_sym = x.shape[0] // sps - 2

@@ -2,7 +2,7 @@
 re-design, 3k LoC: ringbuffer.rs, pool.rs, thread.rs, latency.rs,
 stats.rs, alloc_audit.rs).
 
-On TPU the hot path is batch compute, so these primitives serve the
+On the accelerator the hot path is batch compute, so these primitives serve the
 host IO side: feeding device buffers from sockets/files, timing the
 feed loop, and auditing allocations out of it. The lock-free SPSC ring
 itself is the C++ `NativeRingBuffer` (native/iqcore.cpp); this module

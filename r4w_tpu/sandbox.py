@@ -1,11 +1,11 @@
 """Execution sandbox — the full L1–L8 isolation ladder.
 
 Re-design of crates/r4w-sandbox (~4.9k LoC; ladder at levels/mod.rs:19;
-r4w-sandbox/src/error.rs error taxonomy, policy/mod.rs resource
+r4w-sandbox/src/error.rs error classes, policy/mod.rs resource
 policies, ipc/mod.rs broker channel, memory/mod.rs limits,
 fpga/mod.rs (sandboxed FPGA device-passthrough gating); the wasmtime runtime —
 wasm/mod.rs, wasm/runtime.rs, wasm/host_functions.rs, wasm/tests.rs —
-is out of TPU scope per SURVEY §2.8, its isolation role is covered by
+is out of scope per SURVEY §2.8, its isolation role is covered by
 the subprocess runners here):
 L1 memory-safe, L2 Linux namespaces, L3 +seccomp/LSM, L4 container,
 L5 microVM, L6 full VM, L7 hardware partitioning, L8 air gap. Every

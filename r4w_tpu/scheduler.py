@@ -4,7 +4,7 @@ Re-designs of scheduler.rs:240 (TickScheduler — virtual time,
 time-scale control, subscribers, sleep queue) and rt_scheduler.rs:814
 (RealTimeScheduler — TX/RX state machine with guards/priorities).
 
-TPU-first stance (SURVEY.md §2.9): wall-clock hop/TDMA timing becomes
+Batch-first stance (SURVEY.md §2.9): wall-clock hop/TDMA timing becomes
 *sample-indexed* schedules computed up front — `SampleSchedule` produces
 per-sample event masks/ids that kernels consume directly, so timing is
 exact-by-construction instead of jitter-bounded.
@@ -104,7 +104,7 @@ class TickScheduler:
 
 
 # --------------------------------------------------------------------------
-# Sample-indexed schedules (the TPU-native rt_scheduler replacement)
+# Sample-indexed schedules (the batch-first rt_scheduler replacement)
 # --------------------------------------------------------------------------
 
 

@@ -2,7 +2,7 @@
 DriverRegistry, hal/uhd.rs, hal/soapysdr.rs + hal/soapysdr_ffi.rs,
 hal/rtlsdr.rs + hal/rtlsdr_ffi.rs, hal/attenuator.rs, hal/sigmf.rs).
 
-Real SDR hardware is absent in a TPU deployment, so the UHD/Soapy/RTL
+Real SDR hardware is absent in an accelerator deployment, so the UHD/Soapy/RTL
 drivers here are *honest stubs*: they probe for their native libraries,
 report availability, and raise `DeviceNotFound` with a useful message
 when opened without hardware. The functional drivers are the simulator

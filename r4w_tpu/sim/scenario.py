@@ -8,7 +8,7 @@ the engine computes per-emitter range/Doppler/FSPL, applies continuous
 Doppler rotation with carried carrier phase, sums the composite, and
 adds a kT·NF thermal noise floor.
 
-TPU-first: geometry is evaluated closed-form per block (midpoint state,
+Batch-first: geometry is evaluated closed-form per block (midpoint state,
 like engine.rs:70-75), but the per-sample work — Doppler rotation,
 scaling, accumulation, noise — is one batched JAX expression over the
 whole block for all emitters at once, not a per-sample loop

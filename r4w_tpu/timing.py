@@ -1,7 +1,7 @@
 """Clocks & timestamps (crates/r4w-core/src/timing.rs re-design, 918 LoC:
 SampleClock, WallClock, HardwareClock, Timestamp).
 
-Batch-first framing: on TPU, time IS the sample index — `SampleClock`
+Batch-first framing: on the device, time IS the sample index — `SampleClock`
 is the authoritative clock for DSP, converting between sample counts
 and timestamps without float drift (integer samples + rational rate).
 WallClock/HardwareClock serve the host-side control plane (schedulers,

@@ -32,7 +32,10 @@ def _bytes_to_audio(data) -> jnp.ndarray:
 
 
 def _audio_to_bytes(audio: jax.Array) -> jax.Array:
-    x = jnp.clip(jnp.asarray(audio) * 128.0, -128, 127).astype(jnp.int32)
+    # round to the nearest level: truncation would return a demodulated
+    # 99.9999 as 99, one LSB low
+    x = jnp.clip(jnp.round(jnp.asarray(audio) * 128.0), -128,
+                 127).astype(jnp.int32)
     return jnp.where(x < 0, x + 256, x)
 
 
@@ -133,6 +136,9 @@ class FM(Waveform):
         return (self.common.amplitude * cis(phase)).astype(IQ_DTYPE)
 
     def demodulate_audio(self, samples) -> jax.Array:
+        """Phase-difference discriminator: one sample shorter than its
+        input, output i being the audio of input sample i + 1 (the first
+        sample has no predecessor to difference against)."""
         samples = jnp.asarray(samples, IQ_DTYPE)
         k_f = 2.0 * jnp.pi * self.freq_deviation / self.common.sample_rate
         omega_c = 2.0 * jnp.pi * self.carrier_freq / self.common.sample_rate

@@ -1,4 +1,4 @@
-"""Waveform framework: the TPU-native `Waveform` API + registry/factory.
+"""Waveform framework: the batch-first `Waveform` API + registry/factory.
 
 Re-design of crates/r4w-core/src/waveform/mod.rs:290-446. Waveforms are
 frozen dataclasses (hashable → usable as jit static args) exposing pure

@@ -16,7 +16,7 @@ real unclassified PHY/link maths:
   93 data (link16/types.rs:97-106 "258 pulses per slot in packed-2").
 * **CCSK(32,5)**: each 5-bit symbol selects a cyclic shift of a public
   32-chip base sequence; demodulation correlates against all 32 shifts
-  in one (pulses × 32) × (32 × 32) matmul on the MXU.
+  in one (pulses × 32) × (32 × 32) matmul.
 * **RS coding over GF(2^5)** (fec/galois.py): data words RS(31,15)
   (t=8), header shortened RS(16,7) from RS(31,22) (t=4) — the real
   Link-16 code parameters.
@@ -330,7 +330,7 @@ class Link16(Waveform):
         chip_soft = chip_soft * scr  # descramble
 
         table = jnp.asarray(ccsk_table())  # (32 shifts, 32 chips)
-        corr = chip_soft @ table.T  # (P, 32) — MXU matmul
+        corr = chip_soft @ table.T  # (P, 32) matmul
         corr = corr.reshape(n_slots, DP_PER_SLOT, 2, 32)
         return jnp.sum(corr, axis=2)  # combine double-pulse diversity
 

@@ -51,41 +51,16 @@ def base_downchirp(params: LoRaParams) -> jax.Array:
     return to_device(down)
 
 
-def symbol_chirps(params: LoRaParams, symbols: jax.Array,
-                  method: str = "auto") -> jax.Array:
+def symbol_chirps(params: LoRaParams, symbols: jax.Array) -> jax.Array:
     """Chirps for a batch of symbols: (..., S) int32 -> (..., S, N) complex64.
 
     Vectorized equivalent of generate_symbol_chirp_fast (chirp.rs:215-260):
-    out[s, i] = base_up[(i + symbol[s]*osf) % N].
-
-    method: 'gather' indexes a rolled table; 'mxu' uses the chirp shift
-    identity up[(n+sh) % N] = up[n] * up[sh] * exp(j 2 pi n s / N) so
-    the tone bank becomes a one-hot matmul against a DFT-phase matrix —
-    ~100x faster on TPUs, where big gathers are slow; 'auto' picks mxu
-    on accelerators for N <= 1024.
+    out[s, i] = base_up[(i + symbol[s]*osf) % N], one gather from the
+    base chirp table. (A one-hot-matmul form of the same shift lost to
+    the gather on an H100 at SF7-SF10; PERF.md, "LoRa chirp synthesis".)
     """
     n = params.samples_per_symbol
     syms = jnp.asarray(symbols, jnp.int32)
-    if method == "auto":
-        method = ("mxu" if n <= 1024 and params.oversample == 1
-                  and jax.default_backend() != "cpu" else "gather")
-    if method == "mxu":
-        if params.oversample != 1:
-            raise ValueError("mxu chirp synthesis requires oversample=1 "
-                             "(the cyclic-shift identity is exact only "
-                             "for N = 2^sf)")
-        up = base_upchirp(params)
-        k = jnp.arange(n, dtype=jnp.int32)
-        # exact integer (k*n mod N) keeps angles in [0, 2pi) -> full f32
-        # precision even for large products
-        ang = (2.0 * np.pi / n) * ((k[:, None] * k[None, :]) % n
-                                   ).astype(jnp.float32)
-        wr, wi = jnp.cos(ang), jnp.sin(ang)
-        oh = jax.nn.one_hot(syms % n, n, dtype=jnp.float32)
-        tone = jax.lax.complex(oh @ wr, oh @ wi)
-        up_s = jax.lax.complex(oh @ up.real.astype(jnp.float32),
-                               oh @ up.imag.astype(jnp.float32))
-        return tone * up_s[..., None] * up
     shift = (syms * params.oversample) % n
     idx = (jnp.arange(n)[None, :] + shift[..., None]) % n
     return base_upchirp(params)[idx]

@@ -1,6 +1,6 @@
 """LoRa modulator/demodulator as pure, jittable batch functions.
 
-Re-designs crates/r4w-core/src/{modulation,demodulation}.rs for TPU:
+Re-designs crates/r4w-core/src/{modulation,demodulation}.rs batch-first:
 the full chain — whitening → Hamming → diagonal interleave → Gray →
 chirp bank gather on TX, and dechirp → batched FFT → argmax → Gray⁻¹ →
 deinterleave → Hamming⁻¹ → dewhiten on RX — is one fused XLA graph with
@@ -78,15 +78,11 @@ def modulate(
 # --------------------------------------------------------------------------
 
 
-def demodulate_symbols(params: LoRaParams, samples: jax.Array,
-                       use_pallas: bool = False):
+def demodulate_symbols(params: LoRaParams, samples: jax.Array):
     """Batched dechirp-FFT-argmax (demodulation.rs:167-226).
 
     samples: (..., S*N) or (..., S, N) complex64 payload-aligned IQ.
     Returns (symbols (..., S) int32, snr_db f32, magnitude f32).
-    use_pallas: route the dechirp+spectrum through the fused MXU kernel
-    (kernels/pallas_kernels.py dechirp_power_mxu) — worthwhile for
-    SF≤9 2-D batches; default stays on XLA's batched FFT.
     """
     n = params.samples_per_symbol
     k = params.chips_per_symbol
@@ -94,17 +90,11 @@ def demodulate_symbols(params: LoRaParams, samples: jax.Array,
         s = samples.shape[-1] // n
         samples = samples[..., : s * n].reshape(*samples.shape[:-1], s, n)
     down = chirp_mod.base_downchirp(params)
-    if use_pallas and samples.ndim == 2 and params.oversample == 1:
-        from r4w_tpu.kernels import dechirp_power_mxu
-
-        power = dechirp_power_mxu(samples.astype(IQ_DTYPE), down)
-        spectrum = None
-    else:
-        mixed = samples.astype(IQ_DTYPE) * down
-        if params.oversample > 1:
-            mixed = mixed[..., :: params.oversample]  # decimate to k chips
-        spectrum = jnp.fft.fft(mixed, axis=-1)  # (..., S, K)
-        power = spectrum.real**2 + spectrum.imag**2
+    mixed = samples.astype(IQ_DTYPE) * down
+    if params.oversample > 1:
+        mixed = mixed[..., :: params.oversample]  # decimate to k chips
+    spectrum = jnp.fft.fft(mixed, axis=-1)  # (..., S, K)
+    power = spectrum.real**2 + spectrum.imag**2
     symbols = jnp.argmax(power, axis=-1).astype(jnp.int32)
     peak_power = jnp.max(power, axis=-1)
     avg_power = jnp.mean(power, axis=-1)

@@ -170,8 +170,7 @@ class OFDM(Waveform):
         n_total = occ.shape[0]
         freq = zeros_iq((n_total, self.fft_size))
         freq = freq.at[:, jnp.asarray(self._fft_bins())].set(occ)
-        # explicit ortho scale: norm="ortho" computes sqrt(prod(shape)) on
-        # device, which hits an unimplemented reduce on some TPU runtimes
+        # explicit ortho scale (a host constant, not a device reduce)
         scale = self.common.amplitude * float(np.sqrt(self.fft_size))
         time = jnp.fft.ifft(freq, axis=-1) * scale
         cp = time[:, self.fft_size - self.cp_len :]

@@ -30,7 +30,7 @@ real soft-decision Viterbi):
   row-wise into a 32-column matrix and read column-wise
   (stanag4285.rs:376-397 block interleaver role).
 
-TPU-first notes: modulation is fully vectorised (frame assembly is one
+Batch-first notes: modulation is fully vectorised (frame assembly is one
 scatter into a (F, 256) symbol grid); demodulation equalises every
 frame in parallel from probe anchors (batched least squares + linear
 interpolation) and runs one batched soft Viterbi over the whole burst.

@@ -190,6 +190,9 @@ def test_fft_filter_matches_direct():
 
 
 def test_lora_mxu_chirp_synthesis_matches_gather():
+    """symbol_chirps obeys the chirp shift identity up[(n+s) % N] =
+    up[n]·up[s]·exp(j2πns/N) (computed here in numpy float64), and the
+    demodulator recovers every symbol."""
     import jax.numpy as jnp
 
     from r4w_tpu.waveforms import lora
@@ -197,25 +200,29 @@ def test_lora_mxu_chirp_synthesis_matches_gather():
 
     p = lora.LoRaParams(sf=7)
     syms = np.arange(128, dtype=np.int32).reshape(2, 64)
-    a = np.asarray(jnp.asarray(
-        chirp_mod.symbol_chirps(p, syms, method="mxu")))
-    b = np.asarray(jnp.asarray(
-        chirp_mod.symbol_chirps(p, syms, method="gather")))
-    assert np.max(np.abs(a - b)) < 5e-3
-    # demod decisions identical
-    out_a, _, _ = lora.demodulate_symbols(p, jnp.asarray(a))
-    out_b, _, _ = lora.demodulate_symbols(p, jnp.asarray(b))
-    assert np.array_equal(np.asarray(out_a), np.asarray(out_b))
-    assert np.array_equal(np.asarray(out_a).reshape(-1), np.arange(128))
+    got = np.asarray(chirp_mod.symbol_chirps(p, syms))
+    up = np.asarray(chirp_mod.base_upchirp(p)).astype(np.complex128)
+    n = np.arange(128)
+    want = (up[None, None, :] * up[syms][..., None]
+            * np.exp(2j * np.pi * n[None, None, :] * syms[..., None] / 128))
+    assert np.max(np.abs(got - want)) < 5e-3
+    out, _, _ = lora.demodulate_symbols(p, jnp.asarray(got))
+    assert np.array_equal(np.asarray(out).reshape(-1), np.arange(128))
 
 
 def test_lora_mxu_rejects_oversample():
-    import pytest
+    """Oversampled chirps shift by symbol·oversample samples (chirp.rs
+    generate_symbol_chirp_fast), and demodulation decimates back."""
+    import jax.numpy as jnp
 
     from r4w_tpu.waveforms import lora
     from r4w_tpu.waveforms.lora import chirp as chirp_mod
 
     p = lora.LoRaParams(sf=7, oversample=2)
-    with pytest.raises(ValueError):
-        chirp_mod.symbol_chirps(p, np.zeros((1, 4), np.int32),
-                                method="mxu")
+    syms = np.asarray([[0, 5, 127]], np.int32)
+    got = np.asarray(chirp_mod.symbol_chirps(p, syms))
+    up = np.asarray(chirp_mod.base_upchirp(p))
+    for i, s in enumerate(syms[0]):
+        np.testing.assert_array_equal(got[0, i], np.roll(up, -2 * s))
+    out, _, _ = lora.demodulate_symbols(p, jnp.asarray(got))
+    assert np.array_equal(np.asarray(out), syms)

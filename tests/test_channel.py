@@ -92,7 +92,7 @@ def test_theoretical_ber_monotone():
 
 
 def test_vmapped_monte_carlo_lanes():
-    """Thousands of AWGN lanes via vmap — the TPU-native 'parallel.rs'."""
+    """Thousands of AWGN lanes via vmap — the batch-first 'parallel.rs'."""
     x = _tone(1024)
     keys = jax.random.split(jax.random.key(7), 64)
     ys = jax.vmap(lambda k: ch.awgn(k, x, 10.0))(keys)

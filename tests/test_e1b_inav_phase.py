@@ -1,7 +1,7 @@
 """End-to-end E1B I/NAV decode off the E1C pilot loop (VERDICT r4 #5).
 
 Small 2-SV dual-component scenario (the 8-SV C/N0-34 version runs on
-the TPU inside tools/e1c_tracking.py): generate E1C pilot + E1B data
+the GPU inside tools/e1c_tracking.py): generate E1C pilot + E1B data
 with real I/NAV pages, acquire + refine the pilots, run the long
 dual-channel pass, decode pages, check CRC-24Q AND data content.
 """

@@ -277,22 +277,21 @@ def test_tcm_coding_gain_over_uncoded_qpsk():
 
 
 def test_viterbi_mxu_bit_exact_vs_scan():
-    """The Pallas VMEM-resident ACS path (viterbi_decode_mxu) must be
-    bit-exact against the XLA-scan decoder on noisy soft input, across
-    batch shapes that exercise lane/time padding (viterbi_decoder.rs
-    parity; SURVEY §2.8 MXU trellis)."""
+    """The packed-decision decoder (the CUDA kernels' contract, here in
+    its plain-JAX form) is bit-exact against the scan decoder on noisy
+    soft input, across batch shapes (viterbi_decoder.rs parity)."""
     import numpy as np
 
-    from r4w_tpu.fec.convolutional import (conv_encode, viterbi_decode,
-                                           viterbi_decode_mxu)
+    from r4w_tpu.fec.convolutional import (conv_encode, viterbi_decode_packed,
+                                           viterbi_decode_scan)
 
     rng = np.random.default_rng(7)
     for lanes, n_info in [(3, 250), (130, 505)]:
         bits = rng.integers(0, 2, (lanes, n_info))
         coded = np.asarray(conv_encode(jnp.asarray(bits)))
         soft = (1.0 - 2.0 * coded) + 0.4 * rng.standard_normal(coded.shape)
-        ref = np.asarray(viterbi_decode(jnp.asarray(soft), soft=True))
-        got = np.asarray(viterbi_decode_mxu(jnp.asarray(soft), soft=True))
+        ref = np.asarray(viterbi_decode_scan(jnp.asarray(soft), soft=True))
+        got = np.asarray(viterbi_decode_packed(jnp.asarray(soft), soft=True))
         assert got.shape == (lanes, n_info)
         assert (got == ref).all()
         assert (got == bits).all()  # noise mild enough to fully correct
@@ -301,36 +300,34 @@ def test_viterbi_mxu_bit_exact_vs_scan():
 def test_viterbi_mxu_other_trellis_and_1d():
     import numpy as np
 
-    from r4w_tpu.fec.convolutional import conv_encode, viterbi_decode_mxu
+    from r4w_tpu.fec.convolutional import conv_encode, viterbi_decode_packed
 
     rng = np.random.default_rng(8)
     bits = rng.integers(0, 2, 180)
     coded = np.asarray(conv_encode(jnp.asarray(bits), 5, (0o23, 0o35)))
-    got = np.asarray(viterbi_decode_mxu(jnp.asarray(coded), 5, (0o23, 0o35)))
+    got = np.asarray(viterbi_decode_packed(jnp.asarray(coded), 5,
+                                           (0o23, 0o35)))
     assert got.shape == (180,)
     assert (got == bits).all()
 
 
 @pytest.mark.slow
 def test_viterbi_mxu_lane_count_beyond_one_block():
-    """Regression (ADVICE r3): lane counts > 2048 that are not a 2048
-    multiple (e.g. 2100 → 128-padded 2176) used to fail the kernel's
-    lanes % lane_block assert in viterbi_forward; the traceback would
-    silently drop the remainder. Lanes must pad to a lane_block
-    multiple and decode bit-exactly."""
+    """Many lanes (2100, not a power of two) decode bit-exactly through
+    the packed-decision path."""
     import numpy as np
 
-    from r4w_tpu.fec.convolutional import (conv_encode, viterbi_decode,
-                                           viterbi_decode_mxu)
+    from r4w_tpu.fec.convolutional import (conv_encode, viterbi_decode_packed,
+                                           viterbi_decode_scan)
 
     rng = np.random.default_rng(11)
     lanes, n_info = 2100, 24
     bits = rng.integers(0, 2, (lanes, n_info))
     coded = np.asarray(conv_encode(jnp.asarray(bits), 5, (0o23, 0o35)))
     soft = (1.0 - 2.0 * coded) + 0.3 * rng.standard_normal(coded.shape)
-    got = np.asarray(viterbi_decode_mxu(jnp.asarray(soft), 5,
-                                        (0o23, 0o35), soft=True))
-    ref = np.asarray(viterbi_decode(jnp.asarray(soft), 5, (0o23, 0o35),
-                                    soft=True))
+    got = np.asarray(viterbi_decode_packed(jnp.asarray(soft), 5,
+                                           (0o23, 0o35), soft=True))
+    ref = np.asarray(viterbi_decode_scan(jnp.asarray(soft), 5, (0o23, 0o35),
+                                         soft=True))
     assert got.shape == (lanes, n_info)
     assert (got == ref).all()

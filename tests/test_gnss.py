@@ -1,6 +1,8 @@
 """GNSS stack tests: PRN known answers, acquisition detection/rejection,
 tracking convergence, S-curve shape, scenario acceptance (SURVEY.md §4)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -456,3 +458,37 @@ def test_galileo_icd_acquisition_roundtrip():
     flat = grid.reshape(grid.shape[0], -1)
     assert int(np.argmax(flat.max(axis=1))) == 1
     assert int(np.argmax(grid[1])) % grid.shape[-1] == shift
+
+
+@pytest.mark.parametrize("stats, budget", [
+    ({"bytes_limit": 63_763_120_128}, 63_763_120_128 / 4.0),
+    ({}, 4e9),
+    (None, 4e9),
+])
+def test_pcps_memory_budget_follows_the_device(monkeypatch, stats, budget):
+    """The default budget is a quarter of the device's memory limit, so
+    a smaller card or a lower XLA_PYTHON_CLIENT_MEM_FRACTION chunks
+    sooner; a device with no memory stats gets 4e9."""
+    class Dev:
+        def memory_stats(self):
+            return stats
+
+    monkeypatch.setattr(acquisition.jax, "devices", lambda: [Dev()])
+    assert acquisition.default_memory_budget() == budget
+
+
+def test_pcps_grid_chunks_to_a_small_budget():
+    """A budget below one PRN's grid chunks the PRN and Doppler axes and
+    gives the same surface as one pass."""
+    rng = np.random.default_rng(3)
+    codes = rng.choice([-1.0, 1.0], (3, 64)).astype(np.float32)
+    x = (rng.standard_normal(256) + 1j * rng.standard_normal(256)).astype(
+        np.complex64)
+    base = acquisition.PcpsConfig(doppler_max_hz=500.0, doppler_step_hz=250.0,
+                                  coherent_periods=4, align_refine=False)
+    whole = acquisition.pcps_grid(x, codes, 64_000.0, base)
+    for budget in (2 * 5 * 64 * 32, 2 * 64 * 32):
+        cfg = dataclasses.replace(base, memory_budget_bytes=float(budget))
+        np.testing.assert_allclose(
+            np.asarray(acquisition.pcps_grid(x, codes, 64_000.0, cfg)),
+            np.asarray(whole), rtol=1e-5, atol=1e-3)

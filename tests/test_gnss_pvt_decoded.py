@@ -7,7 +7,7 @@ assembly → transmit-time bookkeeping → PVT solve — with synthetic
 tracked prompts carrying per-SV NON-integer transit delays, no truth
 positions and no supplied milliseconds anywhere on the receiver side.
 The IQ/tracking front end is covered by test_gnss_scenario2.py's
-LNAV roundtrip and runs end-to-end on the TPU in tools/gps_pvt_fix.py.
+LNAV roundtrip and runs end-to-end on the GPU in tools/gps_pvt_fix.py.
 
 Reference: nav_message.rs:51,231 stops at subframe-1 clock decode;
 the ephemeris decode feeding a position solve goes beyond.

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Per-waveform device smoke sweep: modulate -> host transfer ->
-demodulate for every factory waveform, each in its own subprocess
-(the TPU runtime can wedge across processes after a failure, so
-failures are retested once after a cooldown before being reported).
+demodulate for every factory waveform, each in its own subprocess,
+one at a time (a JAX process reserves most of the card's memory, so
+the parent stays off the GPU; failures are retested once before being
+reported).
 
 Usage: python tools/device_sweep.py [--skip NAME,NAME] [--timeout S]
 Exit code = number of confirmed failures.

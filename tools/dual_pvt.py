@@ -23,7 +23,7 @@ tracked carrier Dopplers against decoded-ephemeris satellite
 velocities (the receiver is static, so the solved speed is the
 end-to-end Doppler error budget).
 
-Prints ONE JSON line. Run on the TPU:
+Prints ONE JSON line. Run on the GPU:
   timeout 1800 python tools/dual_pvt.py
 Reference role: none — the reference has no nav decode and no PVT
 for either constellation (SURVEY §2.4); multi-constellation fusion is

@@ -24,7 +24,7 @@ one symbol per code epoch means block index IS symbol index — no
 
 Prints ONE JSON line with the position error in meters.
 
-Run on the TPU:  timeout 1200 python tools/galileo_pvt.py
+Run on the GPU:  timeout 1200 python tools/galileo_pvt.py
 Reference role: none — the reference generates Galileo E1 signals
 (crates/r4w-core/src/waveform/gnss/galileo_e1.rs, boc.rs) but has no
 I/NAV word layer, no Galileo nav decode, and no PVT; this gate plus

@@ -11,7 +11,7 @@ to the production Costas DLL/PLL, and recovers the 20 ms nav bits from
 the prompt stream. All six channels share ONE spreading code — the
 only separation is frequency, so this is a true FDMA test.
 
-Prints ONE JSON line. Run on the TPU:
+Prints ONE JSON line. Run on the GPU:
   timeout 900 python tools/glonass_track.py
 
 Reference role: the reference carries the GLONASS L1OF waveform

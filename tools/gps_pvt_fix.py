@@ -19,7 +19,7 @@ pseudoranges with truth integer-ms and truth satellite positions.
 
 Prints ONE JSON line with the position error in meters.
 
-Run on the TPU:  timeout 900 python tools/gps_pvt_fix.py
+Run on the GPU:  timeout 900 python tools/gps_pvt_fix.py
 Reference role: cmd_gnss_simulate → acquisition → tracking →
 LnavMessage nav decode (crates/r4w-cli/src/main.rs:3383,
 crates/r4w-core/src/waveform/gnss/nav_message.rs:51,231,

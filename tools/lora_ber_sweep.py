@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Full LoRa SF7-SF12 Monte-Carlo BER sweep on one chip — the
-BASELINE.json acceptance target (<60 s compute). Prints one JSON line.
+"""Full LoRa SF7-SF12 Monte-Carlo BER sweep on one card (acceptance
+target: < 60 s compute). Prints one JSON line.
 """
 
 import json
